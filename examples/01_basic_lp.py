@@ -5,7 +5,7 @@ Run: python examples/01_basic_lp.py
 
 import numpy as np
 
-import pycllp_tpu as tp
+import pycllp_jax as tp
 
 # --- 1. GeneralLP: bounds, senses, ranges --------------------------------
 # min  x + y

@@ -10,15 +10,15 @@ import time
 
 import numpy as np
 
-import pycllp_tpu as tp
-from pycllp_tpu.io.generate import random_standard_lp
+import pycllp_jax as tp
+from pycllp_jax.io.generate import random_standard_lp
 
 N_SCENARIOS = 4096
 
 lp = random_standard_lp(64, 64, nlp=N_SCENARIOS, seed=0, dtype=np.float32)
 print(f"batch: {lp.nproblems} scenarios of a {lp.nrows}x{lp.ncols} LP")
 
-solver = tp.get_solver("hsd_pallas", tol=1e-5, dtype="float32", stall_patience=6)
+solver = tp.get_solver("hsd", tol=1e-5, dtype="float32", stall_patience=6)
 solver.init(lp)  # convert + trace + compile once
 
 t0 = time.time()

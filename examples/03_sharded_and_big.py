@@ -9,9 +9,9 @@ import numpy as np
 
 import jax
 
-import pycllp_tpu as tp
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.parallel import (
+import pycllp_jax as tp
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.parallel import (
     column_sharded_hsd_solve,
     model_mesh,
     scenario_mesh,

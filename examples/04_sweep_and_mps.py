@@ -7,10 +7,10 @@ import tempfile
 
 import numpy as np
 
-import pycllp_tpu as tp
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.io.mps import read_mps, write_mps
-from pycllp_tpu.utils.sweep import scenario_sweep
+import pycllp_jax as tp
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.io.mps import read_mps, write_mps
+from pycllp_jax.utils.sweep import scenario_sweep
 
 # --- MPS round trip ------------------------------------------------------
 glp = tp.GeneralLP(A=[[1, 2], [3, 1]], row_lb=[2, 3], c=[1, 1], sense="min")

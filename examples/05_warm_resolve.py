@@ -10,8 +10,8 @@ Run: python examples/05_warm_resolve.py
 
 import numpy as np
 
-import pycllp_tpu as tp
-from pycllp_tpu.io.generate import random_standard_lp
+import pycllp_jax as tp
+from pycllp_jax.io.generate import random_standard_lp
 
 N_STEPS = 12
 lp = random_standard_lp(20, 40, nlp=512, seed=0)  # 512 scenarios per step

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from pycllp_tpu import GeneralLP, Status, get_solver
+from pycllp_jax import GeneralLP, Status, get_solver
 
 
 def _random_general_lp(rng):

@@ -12,11 +12,11 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_standard_lp
-from pycllp_tpu.ops.reference import REFERENCE_KERNELS
-from pycllp_tpu.solvers.crossover import basis_indicator, crossover_candidate
-from pycllp_tpu.solvers.hsd import hsd_solve_batched, hsd_solve_scan
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_standard_lp
+from pycllp_jax.ops.reference import REFERENCE_KERNELS
+from pycllp_jax.solvers.crossover import basis_indicator, crossover_candidate
+from pycllp_jax.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 
 
 def _finish_opts(mode, **kw):
@@ -141,7 +141,7 @@ class TestBasisRepair:
         # random batch, interior points truncated early (capped narrow
         # phase analogue): repair must strictly raise the accept count,
         # and accepted lanes must carry contract-grade vertices.
-        from pycllp_tpu.solvers.hsd import hsd_solve_batched as _solve
+        from pycllp_jax.solvers.hsd import hsd_solve_batched as _solve
 
         lp = random_standard_lp(16, 24, nlp=64, seed=11, dtype=np.float32)
         eq = lp.to_equality_form()
@@ -152,7 +152,7 @@ class TestBasisRepair:
         out = _solve(A, b, c, SolverOptions(tol=1e-2, maxiter=7, dtype="float64"))
         x = np.asarray(out["x"])
         z = np.asarray(out["z"])
-        from pycllp_tpu.utils.scaling import ruiz_equilibrate, scale_problem
+        from pycllp_jax.utils.scaling import ruiz_equilibrate, scale_problem
 
         sc = ruiz_equilibrate(A)
         A_s, b_s, c_s = scale_problem(A, b, c, sc)
@@ -169,12 +169,13 @@ class TestBasisRepair:
         assert accs[1] > accs[0], accs
 
     def test_mixed_kset_crossover_matches_reference(self):
-        # the shipping config: basis solves on f32 Pallas factors + f64
-        # refinement ("mixed") must accept the same lanes as the f64
-        # oracle on a well-conditioned batch, with the same vertices.
-        from pycllp_tpu.ops.batchlast import BATCHLAST_KERNELS
+        # the shipping config: basis solves on f32 factors + Triton
+        # solves + f64 refinement ("mixed") must accept the same lanes as
+        # the f64 oracle on a well-conditioned batch, with the same
+        # vertices.
+        from pycllp_jax.ops.gpu import TritonKernels
 
-        mixed = BATCHLAST_KERNELS.finish_kernels("mixed")
+        mixed = TritonKernels(interpret=True).crossover_kernels("mixed")
         lp = random_standard_lp(24, 36, nlp=32, seed=12, dtype=np.float32)
         eq = lp.to_equality_form()
         A = np.asarray(eq.A, np.float64)

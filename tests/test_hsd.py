@@ -11,9 +11,9 @@ from scipy.optimize import linprog
 
 import jax.numpy as jnp
 
-from pycllp_tpu import SolverOptions, Status, get_solver
-from pycllp_tpu.io.generate import random_equality_lp, random_standard_lp
-from pycllp_tpu.solvers.hsd import hsd_solve, hsd_solve_batched
+from pycllp_jax import SolverOptions, Status, get_solver
+from pycllp_jax.io.generate import random_equality_lp, random_standard_lp
+from pycllp_jax.solvers.hsd import hsd_solve, hsd_solve_batched
 
 
 def scipy_objective(A, b, c):
@@ -219,7 +219,7 @@ class TestRegistrySolvers:
     def test_cross_backend_agreement(self):
         """All available backends agree on the same batch (the core
         upstream QA idea, SURVEY.md §4)."""
-        from pycllp_tpu import available_solvers
+        from pycllp_jax import available_solvers
 
         lp = random_standard_lp(10, 15, nlp=4, seed=33)
         objs = {}
@@ -237,7 +237,7 @@ class TestGeneralLPSolve:
     the solution in GENERAL coordinates (recovery map applied)."""
 
     def test_general_roundtrip(self):
-        from pycllp_tpu import GeneralLP
+        from pycllp_jax import GeneralLP
 
         # min x+y s.t. x+2y >= 2, 3x+y >= 3 → x=(0.8, 0.6), obj 1.4
         glp = GeneralLP(A=[[1, 2], [3, 1]], row_lb=[2, 3], c=[1, 1], sense="min")
@@ -248,7 +248,7 @@ class TestGeneralLPSolve:
         np.testing.assert_allclose(float(sol.objective), 1.4, atol=1e-7)
 
     def test_general_with_bounds_and_sense(self):
-        from pycllp_tpu import GeneralLP
+        from pycllp_jax import GeneralLP
 
         glp = GeneralLP(
             A=[[1, 1, 1], [2, 1, 0]],
@@ -319,7 +319,7 @@ class TestNumericalBestIterate:
     the narrow phase alone."""
 
     def test_poisoned_finish_keeps_narrow_best(self):
-        from pycllp_tpu.ops.reference import REFERENCE_KERNELS, KernelSet
+        from pycllp_jax.ops.reference import REFERENCE_KERNELS, KernelSet
 
         class PoisonedFinish(KernelSet):
             """Delegates to the reference kernels but returns NaN solves —
@@ -363,7 +363,7 @@ class TestNumericalBestIterate:
             def solve(self, fac, rs):
                 return REFERENCE_KERNELS.solve(fac, rs)
 
-            def finish_kernels(self, which="df64"):
+            def finish_kernels(self):
                 return self._poison
 
         m, n, B = 16, 40, 16
@@ -408,8 +408,8 @@ class TestNumericalBestIterate:
         """Unit test of the fix: _finalize must answer with the tracked
         best iterate for NUMERICAL lanes and re-open them (OPTIMAL if the
         best point meets tol after all)."""
-        from pycllp_tpu.ops.reference import REFERENCE_KERNELS
-        from pycllp_tpu.solvers.hsd import HSDState, _finalize, _fresh_state, _run_phase
+        from pycllp_jax.ops.reference import REFERENCE_KERNELS
+        from pycllp_jax.solvers.hsd import HSDState, _finalize, _fresh_state, _run_phase
 
         m, n = 12, 30
         A, b, c = random_equality_lp(m, n, seed=23)
@@ -460,8 +460,8 @@ class TestRestartStallClock:
     disabled (they are budget-capped already)."""
 
     def test_compact_restart_survives_unbeatable_old_best(self):
-        from pycllp_tpu.ops.reference import REFERENCE_KERNELS
-        from pycllp_tpu.solvers.hsd import _compact_resume, _fresh_state
+        from pycllp_jax.ops.reference import REFERENCE_KERNELS
+        from pycllp_jax.solvers.hsd import _compact_resume, _fresh_state
 
         m, n, B = 16, 40, 8
         A, _, _ = random_equality_lp(m, n, seed=31)

@@ -10,9 +10,9 @@ path's capped/compacted stages.
 import numpy as np
 import pytest
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_equality_lp, random_standard_lp
-from pycllp_tpu.solvers.hsd import hsd_solve_batched, hsd_solve_scan
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_equality_lp, random_standard_lp
+from pycllp_jax.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 
 
 @pytest.fixture()

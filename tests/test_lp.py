@@ -7,8 +7,8 @@ GeneralLP → StandardLP conversion, sparse construction, batch shapes.
 import numpy as np
 import pytest
 
-from pycllp_tpu import GeneralLP, SparseMatrixBuilder, StandardLP
-from pycllp_tpu.models.sparse import csc_to_dense, dense_to_csc
+from pycllp_jax import GeneralLP, SparseMatrixBuilder, StandardLP
+from pycllp_jax.models.sparse import csc_to_dense, dense_to_csc
 
 
 class TestSparseBuilder:

@@ -4,10 +4,10 @@ import numpy as np
 import pytest
 from scipy.optimize import linprog
 
-from pycllp_tpu import SolverOptions, Status, get_solver
-from pycllp_tpu.io.mps import read_mps, write_mps
-from pycllp_tpu.io.netlib import fixture_names, load_fixture, pad_and_mask
-from pycllp_tpu.models import GeneralLP
+from pycllp_jax import SolverOptions, Status, get_solver
+from pycllp_jax.io.mps import read_mps, write_mps
+from pycllp_jax.io.netlib import fixture_names, load_fixture, pad_and_mask
+from pycllp_jax.models import GeneralLP
 
 SAMPLE = """\
 * classic tiny example
@@ -156,7 +156,7 @@ class TestNetlibFixtures:
     def test_padded_batch_solves_to_same_objectives(self):
         """The heterogeneous padded batch must reproduce each problem's
         individual objective (padding never binds)."""
-        from pycllp_tpu.solvers.hsd import hsd_solve_batched
+        from pycllp_jax.solvers.hsd import hsd_solve_batched
 
         probs = [load_fixture(n) for n in fixture_names()]
         stds = [p.lp.to_standard_form()[0] for p in probs]

@@ -1,7 +1,7 @@
 """Netlib fixture suite (BASELINE.md config 4).
 
 Real netlib data cannot exist in this environment (permanent
-disposition in pycllp_tpu/io/netlib.py); these tests pin the synthetic
+disposition in pycllp_jax/io/netlib.py); these tests pin the synthetic
 stand-ins' optima through the FULL GeneralLP -> StandardLP -> registry
 solver chain and prove the heterogeneous padding scheme is benign
 (padded-lane optima equal unpadded ones) -- VERDICT r2 items 7 and
@@ -11,8 +11,8 @@ weak-7.
 import numpy as np
 import pytest
 
-from pycllp_tpu import SolverOptions, Status, get_solver
-from pycllp_tpu.io.netlib import (
+from pycllp_jax import SolverOptions, Status, get_solver
+from pycllp_jax.io.netlib import (
     FIXTURE_OBJECTIVES,
     fixture_names,
     load_fixture,
@@ -36,7 +36,7 @@ def test_fixture_optimum_through_full_chain(name):
 def test_padding_is_benign():
     """Solving the padded batch must reproduce each problem's own
     optimum: pad rows are slack-only, pad columns never enter."""
-    from pycllp_tpu.solvers.hsd import hsd_solve_batched
+    from pycllp_jax.solvers.hsd import hsd_solve_batched
 
     stds = [load_fixture(nm).lp.to_standard_form()[0] for nm in fixture_names()]
     A, b, c, row_mask, col_mask = pad_and_mask(stds, np.float64)

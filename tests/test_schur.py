@@ -8,10 +8,10 @@ from scipy.optimize import linprog
 
 import jax
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.parallel import column_sharded_hsd_solve, model_mesh
-from pycllp_tpu.solvers.hsd import hsd_solve
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.parallel import column_sharded_hsd_solve, model_mesh
+from pycllp_jax.solvers.hsd import hsd_solve
 
 
 @pytest.fixture(scope="module")
@@ -92,8 +92,8 @@ class TestBatchedSchur:
             )
 
     def test_registry_schur_pads_columns(self, mesh8):
-        from pycllp_tpu import get_solver
-        from pycllp_tpu.io.generate import random_standard_lp
+        from pycllp_jax import get_solver
+        from pycllp_jax.io.generate import random_standard_lp
 
         # n_structural + m slacks not divisible by 8 → exercises padding
         lp = random_standard_lp(9, 21, nlp=3, seed=17)
@@ -176,7 +176,7 @@ class TestShardedFactor:
         import jax.numpy as jnp
         from jax.sharding import PartitionSpec as P
 
-        from pycllp_tpu.parallel.dchol import (
+        from pycllp_jax.parallel.dchol import (
             rowshard_cholesky,
             rowshard_cholesky_solve,
         )

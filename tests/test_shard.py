@@ -6,10 +6,10 @@ from scipy.optimize import linprog
 
 import jax
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.parallel import scenario_mesh, sharded_hsd_solve
-from pycllp_tpu.solvers.hsd import hsd_solve_batched
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.parallel import scenario_mesh, sharded_hsd_solve
+from pycllp_jax.solvers.hsd import hsd_solve_batched
 
 
 @pytest.fixture(scope="module")
@@ -92,9 +92,9 @@ class TestShardedScan:
     — the sharded path previously had no cap/compact/finish story)."""
 
     def test_matches_unsharded_scan(self, mesh8):
-        from pycllp_tpu.io.generate import random_standard_lp
-        from pycllp_tpu.parallel import sharded_hsd_solve_scan
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.io.generate import random_standard_lp
+        from pycllp_jax.parallel import sharded_hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         lp = random_standard_lp(12, 18, nlp=64, seed=21, dtype=np.float64)
         eq = lp.to_equality_form()
@@ -120,8 +120,8 @@ class TestShardedScan:
     def test_finish_crossover_meets_contract(self, mesh8):
         from scipy.optimize import linprog
 
-        from pycllp_tpu.io.generate import random_standard_lp
-        from pycllp_tpu.parallel import sharded_hsd_solve_scan
+        from pycllp_jax.io.generate import random_standard_lp
+        from pycllp_jax.parallel import sharded_hsd_solve_scan
 
         lp = random_standard_lp(16, 24, nlp=64, seed=22, dtype=np.float32)
         eq = lp.to_equality_form()
@@ -155,20 +155,20 @@ class TestShardedScan:
 
 class TestDistributedHelpers:
     def test_single_process_noop(self):
-        from pycllp_tpu.parallel import initialize, is_distributed
+        from pycllp_jax.parallel import initialize, is_distributed
 
         assert initialize() is False
         assert is_distributed() is False
 
     def test_global_mesh(self):
-        from pycllp_tpu.parallel import global_scenario_mesh
+        from pycllp_jax.parallel import global_scenario_mesh
 
         mesh = global_scenario_mesh()
         assert mesh.devices.size == 8
         assert mesh.axis_names == ("scenario",)
 
     def test_host_local_batch(self):
-        from pycllp_tpu.parallel import host_local_batch
+        from pycllp_jax.parallel import host_local_batch
 
         lo, count = host_local_batch(100)
         assert (lo, count) == (0, 100)  # single process owns everything

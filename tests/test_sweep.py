@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.utils.sweep import scenario_sweep
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.utils.sweep import scenario_sweep
 
 
 @pytest.fixture()
@@ -97,7 +97,7 @@ class TestSweep:
         np.testing.assert_array_equal(plain.objective, redo.objective)
 
     def test_sharded_sweep(self, sweep_problem):
-        from pycllp_tpu.parallel import scenario_mesh
+        from pycllp_jax.parallel import scenario_mesh
 
         A, b, c = sweep_problem
         # 48 of the 50 scenarios in 3 chunks of 16 over 8 devices

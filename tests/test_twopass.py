@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from pycllp_tpu import SolverOptions, Status
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.solvers.hsd import hsd_solve_batched
-from pycllp_tpu.solvers.twopass import hsd_solve_two_pass
+from pycllp_jax import SolverOptions, Status
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.solvers.hsd import hsd_solve_batched
+from pycllp_jax.solvers.twopass import hsd_solve_two_pass
 
 
 @pytest.fixture()
@@ -79,7 +79,7 @@ class TestTwoPass:
 
 class TestScanSolve:
     def test_matches_batched(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem
         opts = SolverOptions(tol=1e-8, maxiter=60)
@@ -92,7 +92,7 @@ class TestScanSolve:
         np.testing.assert_array_equal(np.asarray(out["status"]), np.asarray(ref["status"]))
 
     def test_pads_ragged_tail(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem  # B=48; chunk 20 -> pad 12, trim back to 48
         opts = SolverOptions(tol=1e-8, maxiter=60)
@@ -105,7 +105,7 @@ class TestScanSolve:
         )
 
     def test_batched_A_rejected(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem
         with pytest.raises(ValueError, match="2-D"):
@@ -116,7 +116,7 @@ class TestCompactScan:
     """Fused cap/compact/warm-resume sweep (single device program)."""
 
     def test_matches_plain_scan_exactly(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem
         opts = SolverOptions(tol=1e-8, maxiter=60)
@@ -135,7 +135,7 @@ class TestCompactScan:
         )
 
     def test_cap_actually_bites(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_batched
+        from pycllp_jax.solvers.hsd import hsd_solve_batched
 
         A, b, c = batch_problem
         opts = SolverOptions(tol=1e-8, maxiter=60)
@@ -146,7 +146,7 @@ class TestCompactScan:
         assert n_unfinished > 0, "fixture must exercise the resume path"
 
     def test_bucket_overflow_keeps_capped_rows(self, batch_problem):
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem
         opts = SolverOptions(tol=1e-8, maxiter=60)
@@ -167,8 +167,8 @@ class TestCompactScan:
 
     def test_registry_solver_scan_knobs(self):
         """get_solver(..., chunk/compact_cap) routes through the scan."""
-        import pycllp_tpu as tp
-        from pycllp_tpu.io.generate import random_standard_lp
+        import pycllp_jax as tp
+        from pycllp_jax.io.generate import random_standard_lp
 
         lp = random_standard_lp(6, 10, nlp=40, seed=77, dtype=np.float64)
         plain = tp.get_solver("hsd", tol=1e-8, maxiter=60)
@@ -192,7 +192,7 @@ class TestCompactScan:
         configuration that makes the throughput headline honest —
         BASELINE.md "Correctness" row).
         """
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b, c = batch_problem
         opts = SolverOptions(

@@ -6,12 +6,12 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pycllp_tpu import SolverOptions
-from pycllp_tpu.io.generate import random_equality_lp
-from pycllp_tpu.solvers.hsd import hsd_solve
-from pycllp_tpu.utils.logging import metrics_to_jsonl, set_metrics_sink
-from pycllp_tpu.utils.profiling import achieved_tflops, ipm_iteration_flops, solve_flops
-from pycllp_tpu.utils.scaling import ruiz_equilibrate, scale_problem
+from pycllp_jax import SolverOptions
+from pycllp_jax.io.generate import random_equality_lp
+from pycllp_jax.solvers.hsd import hsd_solve
+from pycllp_jax.utils.logging import metrics_to_jsonl, set_metrics_sink
+from pycllp_jax.utils.profiling import achieved_tflops, ipm_iteration_flops, solve_flops
+from pycllp_jax.utils.scaling import ruiz_equilibrate, scale_problem
 
 
 class TestScaling:
@@ -49,7 +49,7 @@ class TestMetrics:
         assert records[-1]["rho_p_max"] < records[0]["rho_p_max"]
 
     def test_sink_restored(self, tmp_path):
-        import pycllp_tpu.utils.logging as L
+        import pycllp_jax.utils.logging as L
 
         with metrics_to_jsonl(str(tmp_path / "x.jsonl")):
             pass
@@ -74,7 +74,7 @@ class TestFlopModel:
 
 class TestCheckedSolve:
     def test_clean_solve_no_report(self):
-        from pycllp_tpu.utils.debug import checked_solve
+        from pycllp_jax.utils.debug import checked_solve
 
         A, b, c = random_equality_lp(6, 15, seed=2)
         out, report = checked_solve(A, b[None], c[None], SolverOptions(tol=1e-8))
@@ -85,8 +85,8 @@ class TestCheckedSolve:
         """Force a NUMERICAL lane via a pathologically scaled instance
         in f32 with zero regularization."""
         import numpy as np
-        from pycllp_tpu.utils.debug import checked_solve
-        from pycllp_tpu import Status
+        from pycllp_jax.utils.debug import checked_solve
+        from pycllp_jax import Status
 
         A, b, c = random_equality_lp(8, 20, seed=3)
         A = A * np.logspace(-6, 6, 20)[None, :]  # wreck the column scaling

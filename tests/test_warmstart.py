@@ -9,9 +9,9 @@ from the previous solution must (a) converge to the same optimum and
 import numpy as np
 from scipy.optimize import linprog
 
-from pycllp_tpu import SolverOptions, Status, get_solver
-from pycllp_tpu.io.generate import random_equality_lp, random_standard_lp
-from pycllp_tpu.solvers.hsd import hsd_solve_batched
+from pycllp_jax import SolverOptions, Status, get_solver
+from pycllp_jax.io.generate import random_equality_lp, random_standard_lp
+from pycllp_jax.solvers.hsd import hsd_solve_batched
 
 
 def _batch_problem(m=12, n=30, B=24, seed=0):
@@ -112,7 +112,7 @@ class TestWarmStartRegistry:
         """hsd_solve_scan(warm_chain=True): chunk k+1 lane j starts from
         chunk k lane j on a correlated stream — fewer mean iterations,
         unchanged solutions (VERDICT r1 item 6)."""
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b0, c = _batch_problem(m=10, n=24, B=8, seed=9)
         rng = np.random.default_rng(10)
@@ -138,7 +138,7 @@ class TestWarmStartRegistry:
 
     def test_scan_warm_chain_compact_path(self):
         """warm_chain composes with the fused cap/compact sweep."""
-        from pycllp_tpu.solvers.hsd import hsd_solve_scan
+        from pycllp_jax.solvers.hsd import hsd_solve_scan
 
         A, b0, c = _batch_problem(m=10, n=24, B=8, seed=12)
         rng = np.random.default_rng(13)
