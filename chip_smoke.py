@@ -29,6 +29,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 FORM_TOL = 1e-5  # f32 formation at "highest" vs f64; TF32 would land near 1e-3
 BACKWARD_TOL = 1e-5  # per-lane backward error of factor + solve, ~m·ε_f32
 CONTRACT_TOL = 1e-6  # the solver's objective contract, audited against scipy
+# lanes of the 65,536-LP workload (seed 3) that an H100 run once left
+# nearest the contract or above it; every audit of that workload adds them
+EDGE_LANES = (12439, 22128, 24701, 34493, 42413, 46605)
 
 
 def say(*a):
@@ -193,7 +196,8 @@ def main_path_phase(kset, card, total=65536):
         f"p50/p99 {np.percentile(out['iterations'], 50):.0f}/"
         f"{np.percentile(out['iterations'], 99):.0f}")
     check(bool((st == int(Status.OPTIMAL)).all()), f"all {total} lanes OPTIMAL at tol {opts.tol}")
-    audit = bench.accuracy_check(lp, out["objective"], n_std, total, status=st)
+    edge = [i for i in EDGE_LANES if i < total]
+    audit = bench.accuracy_check(lp, out["objective"], n_std, total, status=st, extra=edge)
     check(audit <= CONTRACT_TOL, f"scipy audit max rel err {audit:.2e} <= {CONTRACT_TOL:.0e}")
 
 
@@ -275,34 +279,38 @@ def four_phase(kset, per=16384, schur=(256, 2048, 8)):
     )
 
     m, n_std = 64, 64
+    total = 4 * per
     say(f"== four cards: sharded_hsd_solve, 4 x {per} LPs of {m}x{n_std} ==")
-    eq = random_standard_lp(m, n_std, nlp=4 * per, seed=3, dtype=np.float32).to_equality_form()
+    lp = random_standard_lp(m, n_std, nlp=total, seed=3, dtype=np.float32)
+    eq = lp.to_equality_form()
     A, b, c = (np.asarray(v, np.float32) for v in (eq.A, eq.b, eq.c))
     opts = bench.bench_options()
     keys = ("objective", "status")
+    edge = [i for i in EDGE_LANES if i < total]
 
     def pull(out):
         return {k: np.asarray(out[k]) for k in keys}
 
-    # the same work on one card: each card's 16,384-lane shard in turn,
-    # so the card runs the very programs (shapes, GEMM choices) that
-    # every card runs in the sharded solve
+    def statuses(st):
+        return dict(zip(*[a.tolist() for a in np.unique(st, return_counts=True)]))
+
+    # the same work on one card: the whole batch in one solve
     t0 = time.time()
-    one = [pull(sharded_hsd_solve(A, b[i * per:(i + 1) * per], c[i * per:(i + 1) * per],
-                                  opts, mesh=scenario_mesh(1), kset=kset)) for i in range(4)]
-    ref = {k: np.concatenate([o[k] for o in one]) for k in keys}
-    say(f"[1 card, 4 shards in turn] {time.time() - t0:.1f}s incl. compile; statuses "
-        f"{dict(zip(*[a.tolist() for a in np.unique(ref['status'], return_counts=True)]))}")
+    ref = pull(sharded_hsd_solve(A, b, c, opts, mesh=scenario_mesh(1), kset=kset))
+    say(f"[1 card] {time.time() - t0:.1f}s incl. compile; statuses {statuses(ref['status'])}")
     for term in ("collective", "local"):
         t0 = time.time()
         out = pull(sharded_hsd_solve(A, b, c, opts, mesh=scenario_mesh(4), kset=kset,
                                      termination=term))
         say(f"[4 cards, {term}] {time.time() - t0:.1f}s incl. compile; statuses "
-            f"{dict(zip(*[a.tolist() for a in np.unique(out['status'], return_counts=True)]))}")
+            f"{statuses(out['status'])}")
         check(bool((out["status"] == ref["status"]).all()), f"{term}: statuses equal the 1-card run")
         rel = np.abs(out["objective"] - ref["objective"]) / np.maximum(1.0, np.abs(ref["objective"]))
         say(f"[4 cards, {term}] lanes differing from the 1-card run: {int((rel > 0).sum())}")
         check(float(rel.max()) <= CONTRACT_TOL, f"{term}: objectives within 1e-6 of 1-card ({rel.max():.2e})")
+        audit = bench.accuracy_check(lp, out["objective"], n_std, total,
+                                     status=out["status"], extra=edge)
+        check(audit <= CONTRACT_TOL, f"{term}: scipy audit max rel err {audit:.2e} <= {CONTRACT_TOL:.0e}")
 
     ms, ns, B = schur
     say(f"== four cards: column_sharded_hsd_solve(factor='sharded'), {B} LPs of {ms}x{ns} ==")
@@ -383,7 +391,7 @@ def main(argv=None) -> int:
     say(f"total: {time.time() - t_all:.1f}s")
     d = devices[0]
     print(json.dumps({"ok": True, "device": {
-        "platform": d.platform, "kind": d.device_kind, "count": len(devices)}}), flush=True)
+        "platform": d.platform, "kind": d.device_kind, "count": need}}), flush=True)
     return 0
 
 

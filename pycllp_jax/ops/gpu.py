@@ -36,11 +36,11 @@ from jax.experimental.pallas import triton as plgpu
 
 from pycllp_jax.ops.reference import REFERENCE_KERNELS, PreparedA, ReferenceKernels
 
-__all__ = ["TritonKernels", "TRITON_KERNELS", "select_kernels"]
+__all__ = ["TritonKernels", "TRITON_KERNELS", "select_kernels", "resolve_kernels"]
 
-# Largest padded order the solve kernel takes (its RHS block is kp×mp
-# registers).
-MAX_M = 128
+# Largest padded order the solve kernel takes: the orders compiled and
+# timed against XLA on the card (PERF.md).  Larger ones go to XLA.
+MAX_M = 64
 
 
 def _pow2(n: int) -> int:
@@ -105,8 +105,8 @@ def solve_padded(L, R, *, interpret: bool = False):
         name="pycllp_chol_solve",
         interpret=interpret,
         backend="triton",
-        # one warp per LP at m <= 64 (measured fastest; PERF.md)
-        compiler_params=plgpu.CompilerParams(num_warps=1 if mp <= 64 else 2, num_stages=1),
+        # one warp per LP (measured fastest at m <= 64; PERF.md)
+        compiler_params=plgpu.CompilerParams(num_warps=1, num_stages=1),
     )(L, R)
 
 
@@ -224,3 +224,9 @@ def select_kernels(backend: str | None = None):
     """The hot-path kernel set for a backend: Triton on a GPU, XLA else."""
     backend = backend or jax.default_backend()
     return TRITON_KERNELS if backend == "gpu" else REFERENCE_KERNELS
+
+
+def resolve_kernels(kset=None):
+    """``kset`` as given, or :func:`select_kernels` for ``None`` — the
+    one place the solver entry points choose their default set."""
+    return select_kernels() if kset is None else kset

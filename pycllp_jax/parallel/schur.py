@@ -28,7 +28,7 @@ least-squares starting point (one extra d=1 factorization), per-lane
 best-iterate tracking with a stall clock, iterative refinement of each
 normal-equations solve in f32, and an optional WIDE FINISH phase
 (``opts.finish_dtype``): the same sharded loop continues the interior
-state in the wide dtype to the full ``opts.tol``.  The wide factor is
+state in the wide dtype toward ``opts.finish_tol()``.  The wide factor is
 the replicated/row-sharded Cholesky in native f64 (the big-LP batch is
 small, so a few wide O(m³/P) factorizations per lane are affordable).
 """
@@ -100,7 +100,7 @@ def column_sharded_hsd_solve(
 
     ``opts.finish_dtype`` enables the wide finish phase: phase 1 runs in
     ``opts.dtype`` to ``opts.switch_tol``, then the SAME sharded state
-    continues in the wide dtype to ``opts.tol`` with
+    continues in the wide dtype toward ``opts.finish_tol()`` with
     ``opts.finish_maxiter`` extra budget (matching the batched path's
     two-phase contract).
 
@@ -525,7 +525,7 @@ def column_sharded_hsd_solve(
                 best_k=jnp.full_like(s.best_k, s.k),
             )
             s = run_phase(
-                ops2, b_rw, c_lw, s, opts.tol,
+                ops2, b_rw, c_lw, s, opts.finish_tol(),
                 opts.maxiter + opts.finish_maxiter, opts.finish_patience,
             )
             ops_f, b_rf, c_lf = ops2, b_rw, c_lw

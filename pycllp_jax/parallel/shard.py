@@ -26,7 +26,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from pycllp_jax.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_jax.ops.gpu import resolve_kernels
+from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.hsd import hsd_solve_batched
 from pycllp_jax.solvers.options import SolverOptions
 
@@ -67,7 +68,7 @@ def sharded_hsd_solve(
     c,
     opts: SolverOptions = SolverOptions(),
     mesh: Mesh | None = None,
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     termination: str = "collective",
 ):
     """Solve equality-form LP batch with the scenario axis sharded.
@@ -86,6 +87,7 @@ def sharded_hsd_solve(
         raise ValueError(f"batch {B} not divisible by mesh size {n_dev}")
     if termination not in ("collective", "local"):
         raise ValueError(f"unknown termination {termination!r}")
+    kset = resolve_kernels(kset)
 
     a_spec = P(axis) if np.ndim(A) == 3 else P()
     reduce_any = CollectiveAny(axis) if termination == "collective" else jnp.any
@@ -109,7 +111,7 @@ def sharded_hsd_solve_scan(
     c,
     opts: SolverOptions = SolverOptions(),
     mesh: Mesh | None = None,
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     *,
     chunk: int = 16384,
     keys: tuple = ("objective", "status", "iterations"),
@@ -146,6 +148,7 @@ def sharded_hsd_solve_scan(
         raise ValueError("sharded_hsd_solve_scan requires shared 2-D A")
     if mesh is None:
         mesh = scenario_mesh()
+    kset = resolve_kernels(kset)
     axis = mesh.axis_names[0]
     n_dev = mesh.devices.size
     b = jnp.asarray(b)

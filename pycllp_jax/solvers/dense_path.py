@@ -24,7 +24,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from pycllp_jax.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_jax.ops.gpu import resolve_kernels
+from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.base import BaseSolver, register_solver
 from pycllp_jax.solvers.options import Solution, SolverOptions, Status
 from pycllp_jax.utils.scaling import ruiz_equilibrate, scale_problem, unscale_solution
@@ -55,12 +56,12 @@ def dense_path_solve_batched(
     b,
     c,
     opts: SolverOptions = SolverOptions(),
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     reduce_any: Callable = jnp.any,
 ):
     """Batched path-following solve; same output dict as hsd_solve_batched."""
     with jax.default_matmul_precision("highest"):
-        return _impl(A, b, c, opts, kset, reduce_any)
+        return _impl(A, b, c, opts, resolve_kernels(kset), reduce_any)
 
 
 def _impl(A, b, c, opts, kset, reduce_any):
@@ -193,11 +194,10 @@ class DensePathSolver(BaseSolver):
 
     name = "dense_path"
     aliases = ("dense",)
-    kernels: KernelSet = REFERENCE_KERNELS
 
     def _solve_impl(self, A, b, c) -> Solution:
         out = dense_path_solve_batched(
-            jnp.asarray(A), jnp.asarray(b), jnp.asarray(c), self.options, self.kernels
+            jnp.asarray(A), jnp.asarray(b), jnp.asarray(c), self.options
         )
         out = {k: np.asarray(v) for k, v in out.items()}
         return Solution(

@@ -49,7 +49,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from pycllp_jax.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_jax.ops.gpu import resolve_kernels
+from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.options import SolverOptions, Status
 from pycllp_jax.utils.scaling import ruiz_equilibrate, scale_problem, unscale_solution
 
@@ -970,7 +971,7 @@ def hsd_solve_batched(
     b,
     c,
     opts: SolverOptions = SolverOptions(),
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     reduce_any: Callable = jnp.any,
     warm=None,
 ):
@@ -980,6 +981,8 @@ def hsd_solve_batched(
     ----------
     A : (m, n) shared or (B, m, n) per-instance constraint matrices.
     b : (B, m); c : (B, n).
+    kset : the hot-path kernel set; ``None`` picks the backend's own
+        (:func:`pycllp_jax.ops.gpu.select_kernels`).
     reduce_any : mask reduction for the loop predicate; the sharded path
         passes a collective (e.g. a psum of the local mask).
     warm : optional (x, y, z) starting point in UNSCALED equality
@@ -999,7 +1002,9 @@ def hsd_solve_batched(
     """
     _require_x64(opts)  # trace-time: silent f64→f32 truncation is an error
     with jax.default_matmul_precision("highest"):
-        return _hsd_solve_batched_impl(A, b, c, opts, kset, reduce_any, warm)
+        return _hsd_solve_batched_impl(
+            A, b, c, opts, resolve_kernels(kset), reduce_any, warm
+        )
 
 
 def _hsd_solve_batched_impl(A, b, c, opts, kset, reduce_any, warm=None):
@@ -1084,7 +1089,7 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, reduce_any, warm=None):
             wopts,
             fkset,
             fdtype,
-            opts.tol,
+            opts.finish_tol(),
             opts.maxiter + opts.finish_maxiter,
             reduce_any,
         )
@@ -1118,14 +1123,14 @@ def _hsd_solve_batched_impl(A, b, c, opts, kset, reduce_any, warm=None):
             state = _run_phase(
                 ctx, b_f, c_f, state,
                 wopts.replace(stall_patience=_NO_STALL), fkset, fdtype,
-                opts.tol, opts.finish_maxiter + 10, reduce_any,
+                opts.finish_tol(), opts.finish_maxiter + 10, reduce_any,
             )
         return _package(ctx, b_f, c_f, state, fkset, opts, scaling, c_w)
 
     return _package(ctx, b_s, c_s, state, kset, opts, scaling, c_w)
 
 
-def hsd_solve(A, b, c, opts: SolverOptions = SolverOptions(), kset: KernelSet = REFERENCE_KERNELS):
+def hsd_solve(A, b, c, opts: SolverOptions = SolverOptions(), kset: KernelSet | None = None):
     """Unbatched convenience wrapper: solve one ``min cᵀx, Ax=b, x≥0``."""
     out = hsd_solve_batched(A, b[None], c[None], opts, kset)
     return {k: v[0] for k, v in out.items()}
@@ -1425,7 +1430,8 @@ def _hsd_scan_finish_core(
 
     Takes the (device-resident) narrow HSDState from
     :func:`_hsd_scan_narrow_core` and polishes every lane to the full
-    ``opts.tol`` contract in the wide dtype.  Stage 3 runs the vertex
+    ``opts.tol`` contract in the wide dtype (the wide IPM aims at
+    ``opts.finish_tol()``).  Stage 3 runs the vertex
     crossover (or a capped wide IPM) per scanned chunk; stage 4 drains
     the rejects through BOUNDED ``lax.while_loop`` rounds of gathered
     float64 work — each round is skipped at runtime when no lane is
@@ -1466,6 +1472,7 @@ def _hsd_scan_finish_core(
             # a NARROW knob — wide directions refine symmetrically
             gondzio_correctors=opts.finish_gondzio,
         )
+        ftol = opts.finish_tol()  # where the wide IPM stops a lane
 
         # PYCLLP_FINISH_TRUNCATE=<stage>: return after the named stage
         # (diagnostic builds only — splits the finish program's cost
@@ -1523,7 +1530,7 @@ def _hsd_scan_finish_core(
                 st_fields, b_s, c_s = xs
                 st = HSDState(k=jnp.int32(0), **st_fields)
                 st = _run_phase(
-                    fctx, b_s, c_s, st, wopts, fkset, wide, opts.tol, finish_cap, jnp.any
+                    fctx, b_s, c_s, st, wopts, fkset, wide, ftol, finish_cap, jnp.any
                 )
                 return None, {f_: v for f_, v in st._asdict().items() if f_ != "k"}
 
@@ -1638,7 +1645,7 @@ def _hsd_scan_finish_core(
             def tier1(b2, c2, st2):
                 st2 = st2._replace(best_k=jnp.full_like(st2.best_k, st2.k))
                 st2 = _run_phase(
-                    fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
+                    fctx, b2, c2, st2, wopts, fkset, wide, ftol,
                     st2.k + finish_cap, jnp.any,
                 )
                 st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
@@ -1656,7 +1663,7 @@ def _hsd_scan_finish_core(
             def tier2(b2, c2, st2):
                 st2 = st2._replace(best_k=jnp.full_like(st2.best_k, st2.k))
                 st2 = _run_phase(
-                    fctx, b2, c2, st2, wopts, fkset, wide, opts.tol,
+                    fctx, b2, c2, st2, wopts, fkset, wide, ftol,
                     st2.k + opts.finish_maxiter, jnp.any,
                 )
                 if opts.finish_restart:
@@ -1670,7 +1677,7 @@ def _hsd_scan_finish_core(
                     st2 = _run_phase(
                         fctx, b2, c2, st2,
                         wopts.replace(stall_patience=_NO_STALL), fkset, wide,
-                        opts.tol, opts.finish_maxiter + 10, jnp.any,
+                        ftol, opts.finish_maxiter + 10, jnp.any,
                     )
                 st2 = _fold_to_best(fctx, b2, c2, st2, fkset)
                 return _crossover_state(
@@ -1701,7 +1708,7 @@ def _hsd_scan_finish_core(
             sflat = lax.cond(
                 jnp.any(sflat.status == _RUNNING),
                 lambda s: _compact_resume(
-                    fctx, b_sfw, c_sfw, s, wopts, fkset, wide, opts.tol,
+                    fctx, b_sfw, c_sfw, s, wopts, fkset, wide, ftol,
                     base_k + opts.finish_maxiter, finish_bucket,
                 ),
                 lambda s: s,
@@ -1710,7 +1717,7 @@ def _hsd_scan_finish_core(
             sflat = lax.cond(
                 jnp.any(_retry_mask(sflat.status)),
                 lambda s: _compact_resume(
-                    fctx, b_sfw, c_sfw, s, wopts, fkset, wide, opts.tol,
+                    fctx, b_sfw, c_sfw, s, wopts, fkset, wide, ftol,
                     base_k + 2 * opts.finish_maxiter, finish_bucket,
                     restart=opts.finish_restart,
                 ),
@@ -1734,7 +1741,7 @@ def hsd_solve_scan(
     b,
     c,
     opts: SolverOptions = SolverOptions(),
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     *,
     chunk: int = 16384,
     keys: tuple = ("x", "y", "z", "objective", "status", "iterations"),
@@ -1792,6 +1799,7 @@ def hsd_solve_scan(
     if getattr(A, "ndim", 2) != 2:
         raise ValueError("hsd_solve_scan requires shared 2-D A")
     _require_x64(opts)
+    kset = resolve_kernels(kset)
     b = jnp.asarray(b)
     c = jnp.asarray(c)
     N = b.shape[0]

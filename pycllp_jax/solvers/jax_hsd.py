@@ -2,7 +2,7 @@
 
 Upstream parity: the NumPy ``hsd`` solver class and the OpenCL-batched
 ``clhsd`` class collapse onto the same jitted core here; the
-:class:`KernelSet` that feeds the hot path is chosen from the backend
+:class:`KernelSet` that feeds the hot path is the backend's own
 (:func:`pycllp_jax.ops.gpu.select_kernels`).
 """
 
@@ -12,8 +12,6 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pycllp_jax.ops.gpu import select_kernels
-from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.base import BaseSolver, register_solver
 from pycllp_jax.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 from pycllp_jax.solvers.options import Solution, Status
@@ -70,7 +68,6 @@ class JaxHSDSolver(BaseSolver):
 
     name = "hsd"
     aliases = ("jax_hsd", "hsd_pallas", "clhsd", "pallas")
-    kernels: KernelSet | None = None  # None: select_kernels() for the backend
 
     def __init__(
         self,
@@ -92,9 +89,6 @@ class JaxHSDSolver(BaseSolver):
         self._warm = None  # new structure invalidates the warm point
 
     def _solve_impl(self, A, b, c) -> Solution:
-        return self._solve_with(A, b, c, self.kernels or select_kernels())
-
-    def _solve_with(self, A, b, c, kernels) -> Solution:
         scan = (self.chunk or self.compact_cap) and getattr(A, "ndim", 2) == 2
         if scan:
             # warm_start on the scan path means chunk-to-chunk warm
@@ -103,7 +97,7 @@ class JaxHSDSolver(BaseSolver):
             # scan solve is its own chain.
             out = hsd_solve_scan(
                 jnp.asarray(A), jnp.asarray(b), jnp.asarray(c),
-                self.options, kernels,
+                self.options,
                 chunk=self.chunk or b.shape[0], keys=_SOLUTION_KEYS,
                 compact_cap=self.compact_cap,
                 compact_bucket=self.compact_bucket,
@@ -119,7 +113,7 @@ class JaxHSDSolver(BaseSolver):
                 warm = self._warm if shapes_match else None
             out = hsd_solve_batched(
                 jnp.asarray(A), jnp.asarray(b), jnp.asarray(c),
-                self.options, kernels, warm=warm,
+                self.options, warm=warm,
             )
         out = {k: np.asarray(out[k]) for k in _SOLUTION_KEYS}
         if self.options.warm_start and not scan:

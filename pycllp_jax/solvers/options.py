@@ -200,6 +200,19 @@ class SolverOptions:
             return self.reg_eps
         return 2e-6 if np.dtype(dtype) == np.float32 else 1e-12
 
+    def finish_tol(self) -> float:
+        """ρ bound at which the wide finish's IPM stops a lane.
+
+        ρ ≤ tol bounds the scaled residuals, not the objective error: the
+        primal and dual residuals enter the objective as well, and on the
+        64×64 bench workload lanes stopped at ρ ≈ 0.65·tol were up to
+        1.15·tol off scipy.  The wide IPM therefore runs each lane a
+        decade under ``tol``.  A lane whose budget ends first answers its
+        best iterate, OPTIMAL if that meets ``tol``; a crossover vertex is
+        exact up to its verified residuals and is accepted at ``tol``.
+        """
+        return 0.1 * self.tol
+
     def resolved_finish_kkt_refine(self) -> int:
         return self.kkt_refine if self.finish_kkt_refine is None else self.finish_kkt_refine
 

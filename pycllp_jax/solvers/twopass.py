@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from pycllp_jax.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 from pycllp_jax.solvers.options import SolverOptions, Status
 
@@ -53,7 +53,7 @@ def hsd_solve_two_pass(
     b,
     c,
     opts: SolverOptions = SolverOptions(),
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     *,
     chunk: int | None = None,
     pass1_maxiter: int = 16,

@@ -14,14 +14,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from pycllp_jax.ops.reference import REFERENCE_KERNELS
 from pycllp_jax.solvers.hsd import hsd_solve_batched
 from pycllp_jax.solvers.options import SolverOptions, Status
 
 __all__ = ["diagnose_numerical_lanes", "checked_solve"]
 
 
-def checked_solve(A, b, c, opts: SolverOptions = SolverOptions(), kset=REFERENCE_KERNELS):
+def checked_solve(A, b, c, opts: SolverOptions = SolverOptions(), kset=None):
     """Solve; if any lane ends NUMERICAL, attach a diagnosis report."""
     out = hsd_solve_batched(A, b, c, opts, kset)
     status = np.asarray(out["status"])

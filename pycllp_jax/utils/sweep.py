@@ -19,7 +19,7 @@ import numpy as np
 
 import jax
 
-from pycllp_jax.ops.reference import KernelSet, REFERENCE_KERNELS
+from pycllp_jax.ops.reference import KernelSet
 from pycllp_jax.solvers.hsd import hsd_solve_batched, hsd_solve_scan
 from pycllp_jax.solvers.options import SolverOptions
 
@@ -53,7 +53,7 @@ def scenario_sweep(
     mesh=None,
     solve_fn: Callable | None = None,
     progress: Callable[[int, int], None] | None = None,
-    kset: KernelSet = REFERENCE_KERNELS,
+    kset: KernelSet | None = None,
     window_chunks: int = 8,
     compact_cap: int | None = None,
     compact_bucket: int = 8192,

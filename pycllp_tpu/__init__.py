@@ -1,53 +1,18 @@
-"""pycllp_tpu — a TPU-native batched linear-programming framework.
+"""Former name of :mod:`pycllp_jax`, kept so that existing imports and
+``python -m`` calls keep working.
 
-A from-scratch re-design (NOT a port) of the capabilities of
-``jetuk/pycllp``: batched interior-point LP solving where thousands of
-independent LP instances (scenarios) are solved simultaneously on TPU.
-
-Capability parity map (upstream paths are named for orientation only; the
-reference mount was empty this build — see SURVEY.md §0 — so no line
-citations are possible):
-
-=====================  =======================================  =====================
-Capability             upstream (pycllp)                         here (TPU-native)
-=====================  =======================================  =====================
-Problem containers     ``pycllp/lp.py`` GeneralLP/StandardLP    :mod:`pycllp_tpu.models`
-Solver registry        ``pycllp/solvers/__init__.py``           :mod:`pycllp_tpu.solvers`
-Pure reference HSD     ``pycllp/solvers/hsd.py`` (NumPy)        :mod:`pycllp_tpu.solvers.hsd`
-Native backend         vendored Vanderbei C + Cython            :mod:`pycllp_tpu.solvers.cpp` (C++/ctypes)
-Device batch backend   OpenCL work-item-per-LP kernels          :mod:`pycllp_tpu.ops` Pallas kernels
-Scenario batching      leading n-problems axis on b/c           batched pytrees + vmap/mask
-Multi-device           (absent upstream)                        :mod:`pycllp_tpu.parallel`
-LP file IO             vendored ``iolp.c`` MPS reader           :mod:`pycllp_tpu.io.mps`
-=====================  =======================================  =====================
+Every submodule resolves to the very module object of ``pycllp_jax``: one
+solver registry, one jit cache.
 """
 
-__version__ = "0.1.0"
+import importlib
+import pkgutil
+import sys
 
-from pycllp_tpu.models import GeneralLP, StandardLP, EqualityLP, SparseMatrixBuilder
-from pycllp_tpu.solvers import (
-    BaseSolver,
-    Solution,
-    SolverOptions,
-    Status,
-    available_solvers,
-    get_solver,
-    register_solver,
-    solver_registry,
-)
+import pycllp_jax
 
-__all__ = [
-    "GeneralLP",
-    "StandardLP",
-    "EqualityLP",
-    "SparseMatrixBuilder",
-    "BaseSolver",
-    "Solution",
-    "SolverOptions",
-    "Status",
-    "available_solvers",
-    "get_solver",
-    "register_solver",
-    "solver_registry",
-    "__version__",
-]
+for _info in pkgutil.walk_packages(pycllp_jax.__path__, "pycllp_jax."):
+    if not _info.name.endswith(".__main__"):
+        _alias = __name__ + _info.name[len("pycllp_jax"):]
+        sys.modules[_alias] = importlib.import_module(_info.name)
+sys.modules[__name__] = pycllp_jax

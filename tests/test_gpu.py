@@ -52,6 +52,22 @@ def test_compiled_solve_matches_f64_reference(gpu, m, n):
         assert float(jnp.max(bwd)) <= 1e-5
 
 
+def test_entry_points_default_to_triton(gpu):
+    from pycllp_jax import SolverOptions
+    from pycllp_jax.io.generate import random_standard_lp
+    from pycllp_jax.solvers.dense_path import dense_path_solve_batched
+    from pycllp_jax.solvers.hsd import hsd_solve_batched
+
+    eq = random_standard_lp(24, 36, nlp=256, seed=4, dtype=np.float32).to_equality_form()
+    A, b, c = (jnp.asarray(v, jnp.float32) for v in (eq.A, eq.b, eq.c))
+    opts = SolverOptions(tol=1e-5, dtype="float32", init_point="mehrotra")
+    for solve in (hsd_solve_batched, dense_path_solve_batched):
+        default = solve(A, b, c, opts)
+        explicit = solve(A, b, c, opts, TRITON_KERNELS)
+        np.testing.assert_array_equal(
+            np.asarray(default["objective"]), np.asarray(explicit["objective"]))
+
+
 def test_compiled_solve_nonpsd_lane_is_nan(gpu):
     A, d, rs = _problem(16, 40, 64, seed=1)
     d = d.at[5].set(-d[5])

@@ -10,7 +10,9 @@ import jax
 import jax.numpy as jnp
 
 from pycllp_jax.ops import gpu
-from pycllp_jax.ops.gpu import TRITON_KERNELS, TritonFactor, TritonKernels, select_kernels
+from pycllp_jax.ops.gpu import (
+    TRITON_KERNELS, TritonFactor, TritonKernels, resolve_kernels, select_kernels,
+)
 from pycllp_jax.ops.mixed import MixedPrecisionKernels
 from pycllp_jax.ops.reference import REFERENCE_KERNELS, NormalFactor
 
@@ -159,6 +161,12 @@ class TestKernelRouting:
         assert select_kernels("gpu") is TRITON_KERNELS
         assert select_kernels("cpu") is REFERENCE_KERNELS
         assert select_kernels() is REFERENCE_KERNELS  # the tests run on CPU
+
+    @pytest.mark.parametrize("given", [None, "interp", "reference"])
+    def test_entry_point_default_is_the_backend_set(self, given):
+        kset = {None: None, "interp": INTERP, "reference": REFERENCE_KERNELS}[given]
+        want = REFERENCE_KERNELS if kset is None else kset  # the tests run on CPU
+        assert resolve_kernels(kset) is want
 
     def test_interpret_only_when_asked(self):
         assert TRITON_KERNELS.interpret is False
